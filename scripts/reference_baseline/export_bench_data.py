@@ -4,7 +4,7 @@
 Writes base/queries fvecs + exact groundtruth ivecs for the exact data
 bench.py uses (same generator, same seed), so a GLPK/Armadillo-capable host
 can run the reference `demo_vaq` on IDENTICAL inputs and produce
-`baseline_measured.json` for a real `vs_baseline` (VERDICT r1 #10).
+`baseline_measured.json` for a real `vs_baseline`.
 
 Usage:
   python export_bench_data.py --n 1000000 --d 128 --queries 1024 \

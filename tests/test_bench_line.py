@@ -1,8 +1,7 @@
-"""Pin the bench stdout contract (VERDICT r4 #1): the driver captures only
-~2000 chars of output and parses the final line as JSON — BENCH_r03/r04 both
-lost their parsed headline (rc=1 / line >2000 chars). The stdout line must
-stay under budget no matter how many sweep/array fields the full record
-grows."""
+"""Pin the bench stdout contract: a reader may capture only ~2000 chars of
+output and parses the final line as JSON, so the stdout line must stay
+under budget no matter how many sweep/array fields the full record grows,
+and it always names the device the numbers were measured on."""
 
 import json
 import sys
@@ -15,13 +14,15 @@ from bench import _STDOUT_BUDGET, slim_line  # noqa: E402
 
 def _full_record():
     out = {
-        "metric": "ADC search QPS/chip (1M x 128d, 256-bit VAQ)",
+        "metric": "ADC search QPS/device (1M x 128d, 256-bit VAQ)",
         "value": 400123.4, "unit": "qps", "vs_baseline": 1.0,
+        "device": {"platform": "gpu", "kind": "NVIDIA H100 80GB HBM3",
+                   "count": 1, "card": "NVIDIA H100 80GB HBM3, 700.00 W"},
         "recall_at_10": 0.3195, "recall_at_100": 0.3944,
         "recall_at_10_refined": 0.7252, "batch_latency_ms": 2.561,
         "n": 1_000_000, "config": "VAQ256m32min7max8var1,HEAP",
         "value_runs": [396.1, 398.0, 400.1, 402.6, 455.0],
-        "value_spread_pct": 15.0, "kernel_parity_ok": True,
+        "value_spread_pct": 15.0,
         "oracle_delta_recall": -0.0166,
         "ivf_qps": 124000.0, "ivf_recall_at_k": 0.3077, "ivf_visit": 0.1,
         "serving_sweep": [{"offered": o, "achieved": o * 0.97,
@@ -52,9 +53,8 @@ def test_slim_line_under_driver_window():
     line = slim_line(_full_record())
     assert len(line) <= _STDOUT_BUDGET
     parsed = json.loads(line)
-    # the VERDICT r4 #1 "Done" fields must survive slimming
-    for key in ("value", "ivf_qps", "tenm_qps", "tenm_ivf_qps",
-                "kernel_parity_ok"):
+    # the headline, its device and the section headlines survive slimming
+    for key in ("value", "device", "ivf_qps", "tenm_qps", "tenm_ivf_qps"):
         assert key in parsed, key
     # array-valued fields never reach stdout
     for key in ("serving_sweep", "tenm_ivf_sweep", "value_runs"):
@@ -73,6 +73,7 @@ def test_slim_line_truncates_errors_and_survives_bloat():
     parsed = json.loads(line)
     assert len(parsed["capacity_error"]) <= 80
     assert parsed["value"] == 400123.4
+    assert parsed["device"]["platform"] == "gpu"
 
 
 def test_slim_line_normal_case_parses_with_all_sections():

@@ -274,7 +274,7 @@ def _filtering_oracle(qpacked, db_packed, k, n_subvectors):
 def test_progressive_filtering_oracle_parity():
     """query_filtering must match the reference loop exactly on the
     (distance multiset per query) — including the survivor-set restriction
-    at the stopping round (ADVICE r1 low)."""
+    at the stopping round."""
     from vaq_tpu.binary import BinaryIndex
     rng = np.random.default_rng(11)
     base = rng.standard_normal((128, 32)).astype(np.float32)

@@ -32,7 +32,7 @@ def test_ivf_state_shapes(ti_index):
     assert len(valid) == base.shape[0]
     assert len(np.unique(valid)) == base.shape[0]
     # capacity bounding keeps bucket padding waste controlled (cap is
-    # rounded up to the Pallas group-min kernel's 512-row tile)
+    # rounded up to a multiple of 512, so every window size divides it)
     cap_bound = max(np.asarray(st.sizes).max(),
                     int(np.ceil(1.5 * base.shape[0] / 32)))
     assert st.cap <= -(-cap_bound // 512) * 512
@@ -152,9 +152,8 @@ def test_streamed_build_matches_standard(ti_index):
 
 def test_transposed_buckets_d96(sift_like):
     """d % 128 != 0 databases (the Fig.-11 DEEP d=96 class) must build the
-    TRANSPOSED (ncl, D, cap) bucket layout — row-major int8 lane-pads D to
-    128 on device (+33% HBM; the r4/r5 100M OOM) — and probe with recall
-    matching the row-major path's quality on equivalent data."""
+    TRANSPOSED (ncl, D, cap) bucket layout and probe with recall matching
+    the row-major path's quality on equivalent data."""
     import numpy as np
 
     from vaq_tpu import metrics
@@ -202,7 +201,7 @@ def test_transposed_buckets_d96(sift_like):
 
 
 def test_streamed_build_respects_tombstones(sift_like):
-    """ADVICE r4 medium: build_ivf_streamed on an index with prior deletions
+    """build_ivf_streamed on an index with prior deletions
     must not serve the deleted rows (VAQIndex.search skips the tombstone
     post-filter on the TI path, so the probe state itself must mask them —
     the bucket_ids == -1 contract)."""

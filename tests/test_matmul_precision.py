@@ -1,10 +1,10 @@
-"""Pin the package-level matmul-precision contract (r5 correction).
+"""Pin the package-level matmul-precision contract.
 
-JAX's TPU default lowers f32-input matmuls to one bf16 MXU pass, which
-corrupted the brute-force groundtruth (89.2% top-10 correctness vs f64 at
-100k×128d, measured on chip) and quietly degraded PCA/k-means/encode.
-``import vaq_tpu`` must therefore force ``jax_default_matmul_precision``
-to ``highest`` unless explicitly overridden via VAQ_TPU_MATMUL_PRECISION.
+Without it, XLA may run f32-input matmuls at reduced precision (TF32 on the
+GPU), which corrupts the brute-force groundtruth and quietly degrades
+PCA/k-means/encode. ``import vaq_tpu`` must therefore force
+``jax_default_matmul_precision`` to ``highest`` unless explicitly
+overridden via VAQ_TPU_MATMUL_PRECISION.
 """
 
 import jax
@@ -20,7 +20,8 @@ def test_default_matmul_precision_is_highest():
 def test_exact_search_matches_f64_reference():
     """The groundtruth generator must agree with an f64 host reference
     (on CPU this is near-vacuous — f32 matmuls are f32 — but the assertion
-    documents the contract the TPU run depends on)."""
+    documents the contract the GPU run depends on; chip_smoke.py's
+    groundtruth phase checks it on the card)."""
     import jax.numpy as jnp
 
     from vaq_tpu.ops.distances import exact_search

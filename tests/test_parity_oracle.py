@@ -1,6 +1,6 @@
 """Parity gates against the NumPy reference-pipeline oracle (oracle_ref.py).
 
-Three tiers (VERDICT r1 missing #1):
+Three tiers:
 1. train parity — rotation columns (up to sign), truncation, and the exact
    bit allocation objective must agree between the engine and the oracle's
    independent branch-and-bound;

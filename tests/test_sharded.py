@@ -1,5 +1,5 @@
 """Shard-count invariance: N-device results must equal single-device results
-(the TPU analog of the reference's parallel-equivalence test,
+(the device-mesh analog of the reference's parallel-equivalence test,
 test-bitvecengine.cpp:103-113; SURVEY §4)."""
 
 import jax
@@ -171,7 +171,7 @@ def test_pod_mesh_single_process():
 
 
 def test_delete_after_shard(sift_like):
-    """ADVICE r1 (high): tombstones created after .shard() must reach the
+    """Tombstones created after .shard() must reach the
     sharded norms (no stale _sharded_norms)."""
     from vaq_tpu.config import parse_method_string
     from vaq_tpu.vaq import VAQIndex
@@ -188,7 +188,7 @@ def test_delete_after_shard(sift_like):
 
 
 def test_sharded_decoded8_matches_single(mesh8, sift_like):
-    """VERDICT r2 #4: the int8 capacity tier has a sharded path whose
+    """The int8 capacity tier has a sharded path whose
     results match the single-device decoded8 scan (set-equality modulo the
     k-boundary, as for the bf16 tier)."""
     from vaq_tpu.config import parse_method_string
@@ -217,7 +217,7 @@ def test_sharded_decoded8_matches_single(mesh8, sift_like):
 
 
 def test_sharded_codes_matches_single(mesh8, sift_like):
-    """VERDICT r2 #4: the codes-resident (decode-then-dot) tier has a
+    """The codes-resident (decode-then-dot) tier has a
     sharded path; per-shard windows are smaller, so compare top-1 and
     overlap rather than exact sets (window-candidate semantics)."""
     from vaq_tpu.config import parse_method_string
@@ -259,7 +259,7 @@ def test_sharded_codes_tombstones(mesh8, sift_like):
 
 def test_sharded_missing_tier_raises(mesh8, sift_like):
     """A sharded index must fail loudly for a backend whose tier was not
-    sharded (VERDICT r2 weak #5: silent unsharded serving)."""
+    sharded."""
     from vaq_tpu.config import parse_method_string
     from vaq_tpu.errors import ConfigError
     from vaq_tpu.vaq import VAQIndex
@@ -278,7 +278,7 @@ def test_sharded_ivf_matches_unsharded(mesh8, sift_like):
     """Cluster-sharded probe results must track the unsharded probe at the
     same visit fraction (per-shard visiting reorders candidate composition
     slightly, so compare recall overlap, not exact ids) — and the mesh+TI
-    trap must raise when the ivf tier was not sharded (VERDICT r3 #6)."""
+    trap must raise when the ivf tier was not sharded."""
     from vaq_tpu.config import parse_method_string
     from vaq_tpu.errors import ConfigError
     from vaq_tpu.ivf import attach_ivf
@@ -310,7 +310,7 @@ def test_sharded_ivf_matches_unsharded(mesh8, sift_like):
 
 
 def test_sharded_ivf_rescore_matches_unsharded(mesh8, sift_like):
-    """VERDICT r4 #4: the sharded int8 probe must apply the same exact
+    """The sharded int8 probe must apply the same exact
     second-stage rescore as the unsharded path (commit 0ebb99c) — at
     visit=1.0 both select the identical global stage-1 candidate set, so
     with the distributed rescore their recall must be equal (int8-metric

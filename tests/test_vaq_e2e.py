@@ -39,8 +39,7 @@ def test_recall_vs_groundtruth(trained):
     k = 100
     d, labels = idx.search(queries, k)
     rec = metrics.avg_recall(labels, gt, k)
-    # Pinned golden ± 1.5 pt (VERDICT r1 #8: floors would hide silent
-    # regressions). Measured on the fixed-seed fixture, CPU harness,
+    # Pinned golden ± 1.5 pt. Measured on the fixed-seed fixture, CPU harness,
     # round 2: decoded recall@100 = 0.88125.
     assert abs(rec - 0.881) < 0.015, f"recall@100 drifted: {rec}"
     # distances must be non-decreasing per row
@@ -68,15 +67,15 @@ def test_codes_backend_small_n_parity(trained):
     (r2 regression: a 256-row block_rows floor left only n/256 windows —
     with one candidate per window, recall was capped at windows/k). n below
     512·k routes to the decoded fallback (the identical ADC quantity
-    ‖q − x̂‖²); mid-range n shrinks the window to the 8-row minimum."""
+    ‖q − x̂‖²); mid-range n shrinks the window toward the 16-row minimum."""
     idx, _, queries, gt = trained
     rec_dec = metrics.avg_recall(
         np.asarray(idx.search(queries, 100)[1]), gt, 100)
     rec_codes = metrics.avg_recall(
         np.asarray(idx.search(queries, 100, backend="codes")[1]), gt, 100)
     assert rec_codes >= rec_dec - 0.005, (rec_codes, rec_dec)
-    # k=4 ⇒ 8-row windows (500 windows = 125·k): the windowed Pallas path,
-    # within a point of decoded.
+    # k=4 at n=4000 wants 15-row windows, under the 16-row floor: the
+    # decoded fallback, within a point of decoded.
     rec_dec4 = metrics.avg_recall(
         np.asarray(idx.search(queries, 4)[1]), gt, 4)
     rec_codes4 = metrics.avg_recall(
@@ -162,8 +161,7 @@ def test_reference_artifact_roundtrip(tmp_path, trained):
     The re-imported index retrains its rotation from the same data
     (the reference persists no eigenvectors), which is deterministic — so
     the round trip must reproduce the rotation, codes, and search results
-    exactly, not merely to a recall tolerance (VERDICT r1 weak #10: the old
-    |Δrecall| < 0.03 gate could hide a wrong rotation order)."""
+    exactly, not merely to a recall tolerance."""
     idx, base, queries, gt = trained
     cp = str(tmp_path / "cent.bin")
     kp = str(tmp_path / "codes.bin")
@@ -285,7 +283,7 @@ def test_encode_chunk_invariance(sift_like):
 
 
 def test_delete_before_decoded_materialization(sift_like):
-    """ADVICE r1 (high): delete() before the decoded cache exists must still
+    """delete() before the decoded cache exists must still
     exclude the victim once _ensure_decoded/_ensure_decoded8 rebuild norms."""
     base, queries, _ = sift_like
     cfg = parse_method_string("VAQ128m16min7max8var1,SORT")
@@ -318,7 +316,7 @@ def test_delete_persists_through_save_load(tmp_path, sift_like):
 
 
 def test_delete_with_ivf_attached(sift_like):
-    """ADVICE r1 (low): rows deleted after attach_ivf must not be returned
+    """Rows deleted after attach_ivf must not be returned
     by the TI/IVF path (bucket norms/ids are tombstoned in place)."""
     from vaq_tpu.ivf import attach_ivf
     base, queries, _ = sift_like
@@ -333,9 +331,9 @@ def test_delete_with_ivf_attached(sift_like):
 
 
 def test_fast4_low_bits_returns_results(sift_like):
-    """ADVICE r1 (high): FAST with max_bits < 4 used to pad the LUT with
-    +inf, poisoning every window score with NaN (0·inf). Pad is 0 now; the
-    Pallas path (interpret-mode on CPU) must return real neighbors."""
+    """FAST with max_bits < 4 (LUTs narrower than 16 entries) must return
+    real neighbors: an earlier kernel padded the LUT with +inf and poisoned
+    every window score with NaN (0·inf)."""
     base, queries, _ = sift_like
     cfg = parse_method_string("VAQ48m16min1max3var1,FAST")
     idx = VAQIndex(cfg).train(base).encode(base)
@@ -343,17 +341,17 @@ def test_fast4_low_bits_returns_results(sift_like):
     d4, l4 = idx.search(queries[:8], 5, backend="fast4")
     assert (l4 >= 0).all(), "fast4 lost all results for max_bits<4"
     assert np.isfinite(d4).all()
-    # and the winners overlap the XLA gather scan on the same LUTs (the
-    # Pallas path ranks windows by the quantized u8 sums — the reference's
-    # FAST semantics — so at 3-bit tables the sets differ noticeably; the
-    # regression guarded here is the old all -1 NaN poisoning)
+    # and the winners overlap the gather scan on the same LUTs (fast4 ranks
+    # rows by the quantized u8 sums — the reference's FAST semantics — so
+    # at 3-bit tables the sets differ noticeably; the regression guarded
+    # here is the old all -1 NaN poisoning)
     _, lg = idx.search(queries[:8], 5, backend="lut_gather")
     overlap = np.mean([len(set(l4[q]) & set(lg[q])) / 5 for q in range(8)])
     assert overlap >= 0.3, overlap
 
 
 def test_delete_codes_device_path(sift_like):
-    """VERDICT r2 #5: search_device(backend="codes") — the serving entry
+    """search_device(backend="codes") — the serving entry
     point SearchServer(backend="codes") dispatches to — must exclude
     tombstoned rows (it over-fetches k + #deleted and post-filters on
     device; the reference compacts instead, BitVecEngine.cpp:1626-1636)."""
@@ -373,8 +371,7 @@ def test_delete_codes_device_path(sift_like):
 
 
 def test_serving_codes_backend_excludes_deleted(sift_like):
-    """End-to-end: a SearchServer(backend='codes') never serves deleted rows
-    (VERDICT r2 #5 'Done' criterion)."""
+    """End-to-end: a SearchServer(backend='codes') never serves deleted rows."""
     from vaq_tpu.serving import SearchServer
 
     base, queries, _ = sift_like
@@ -392,7 +389,7 @@ def test_serving_codes_backend_excludes_deleted(sift_like):
 
 
 def test_explicit_backend_overrides_ivf(sift_like):
-    """VERDICT r2 weak #9: a concrete backend argument must win over the
+    """A concrete backend argument must win over the
     TI flag + attached probe state; backend='ivf' forces the probe path;
     backend='ivf' without state fails loudly."""
     from vaq_tpu.errors import NotReadyError
@@ -422,7 +419,7 @@ def test_explicit_backend_overrides_ivf(sift_like):
 
 
 def test_add_releases_sharded_buffers(sift_like):
-    """VERDICT r2 weak #5: add() must release the sharded device buffers,
+    """add() must release the sharded device buffers,
     not just the mesh handle."""
     base, _, _ = sift_like
     cfg = parse_method_string("VAQ128m16min7max8var1,SORT")
@@ -435,7 +432,7 @@ def test_add_releases_sharded_buffers(sift_like):
 
 
 def test_learn_quantization_matches_host_reference(sift_like):
-    """The on-device α-grid (VERDICT r3 #9) must reproduce the host-numpy
+    """The on-device α-grid must reproduce the host-numpy
     quantile/loss computation it replaced (same α picked, same offsets and
     scales to f32 tolerance)."""
     import jax.numpy as jnp

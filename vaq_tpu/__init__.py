@@ -1,17 +1,17 @@
-"""vaq_tpu — TPU-native variance-aware quantization (VAQ) similarity-search engine.
+"""vaq_tpu — variance-aware quantization (VAQ) similarity-search engine in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of TheDatumOrg/VAQ
 ("Fast Adaptive Similarity Search through Variance-Aware Quantization"):
 
 * PCA-rotated product quantization with ILP-driven non-uniform bit allocation
   across subspaces (`vaq_tpu.bitalloc`, `vaq_tpu.pca`).
-* Per-subspace k-means codebooks trained with batched Lloyd iterations on the
-  MXU (`vaq_tpu.kmeans`).
-* ADC lookup-table search: LUT build as a batched einsum, the code scan as a
-  blocked gather/one-hot-matmul kernel fused with a streaming top-k
-  (`vaq_tpu.ops`).
+* Per-subspace k-means codebooks trained with batched Lloyd iterations as
+  matmuls (`vaq_tpu.kmeans`).
+* ADC search: a decoded-matmul scan, an int8 tier, a codes-resident tier
+  (a fused Triton kernel on the GPU) and the LUT gather scan, each fused
+  with a top-k (`vaq_tpu.ops`).
 * Exact-distance refinement, LUT u8 quantization, IVF-style cluster probing
-  (the TPU analog of the reference's triangle-inequality pruning).
+  (the batched analog of the reference's triangle-inequality pruning).
 * A binary/Hamming bit-vector engine (`vaq_tpu.binary`).
 * FP-Growth frequent-pattern mining over codebooks (`vaq_tpu.fpgrowth`).
 * Database sharding over a `jax.sharding.Mesh` with per-shard top-k merged via
@@ -25,15 +25,14 @@ import os as _os
 
 import jax as _jax
 
-# f32 matmuls MUST be f32 (r5 on-chip finding): JAX's TPU default lowers
-# f32-input matmuls to ONE bf16 MXU pass, which corrupted every f32 matmul
-# in the pipeline — the brute-force groundtruth most of all (exact_search
-# top-10 only 89.2% correct vs f64 at 100k×128d; "highest" restores 100%).
-# PCA, k-means, encode argmin and LUT builds all assume f32 math as well.
-# The serving hot paths are untouched: they pass explicitly-bf16 operands
-# (decoded/decoded8 scans, probe kernels), which this setting does not
-# affect. Override with VAQ_TPU_MATMUL_PRECISION=default to get the old
-# behavior for A/B measurements.
+# f32 matmuls MUST be f32: on the GPU, JAX's default precision lets XLA run
+# f32-input matmuls in TF32 (about three decimal digits), which would corrupt
+# the brute-force groundtruth most of all (chip_smoke.py's groundtruth phase
+# checks exact_search against float64) and quietly degrade PCA, k-means,
+# encode argmin and LUT builds, which all assume f32 math. The serving hot
+# paths pass explicitly-bf16 operands with pinned precision, which this
+# setting does not affect. VAQ_TPU_MATMUL_PRECISION=default turns it off
+# for A/B measurements.
 if _os.environ.get("VAQ_TPU_MATMUL_PRECISION", "highest") == "highest":
     _jax.config.update("jax_default_matmul_precision", "highest")
 

@@ -1,9 +1,9 @@
 """Binary/Hamming bit-vector engine — the BitVecEngine counterpart.
 
 Re-designs the reference's ``bitvecengine/BitVecEngine.{hpp,cpp}`` +
-``BitVector.hpp`` for TPU:
+``BitVector.hpp`` for an accelerator:
 
-* **Representation** (B1): packed bits in uint32 lanes (TPU's native int
+* **Representation** (B1): packed bits in uint32 lanes (the native int
   width) instead of ``vector<uint64_t>``; bit j of the budget lives in word
   j//32 at MSB-first offset, preserving the reference's MSB-first layout
   semantics (``encodeToBinary``, BitVecEngine.hpp:564-588).
@@ -18,7 +18,7 @@ Re-designs the reference's ``bitvecengine/BitVecEngine.{hpp,cpp}`` +
   - packed: XOR + ``lax.population_count`` + lane-sum (the
     ``hammingDist`` scan, DistanceFunctions.hpp:164-182);
   - matmul: codes unpacked once to an int8 0/1 matrix; then
-    ``hamming(q,x) = pop(q) + pop(x) − 2·(q01 · x01ᵀ)`` runs on the MXU —
+    ``hamming(q,x) = pop(q) + pop(x) − 2·(q01 · x01ᵀ)`` runs as a matmul —
     the throughput path (same decoded-vs-packed trade as scan_decoded).
 * **Rerank** (B7): binary top-(factor·k) then exact L2 (`refineAnswer`).
 * **Cluster probing** (B6) reuses `vaq_tpu.ivf`-style probing; progressive
@@ -106,7 +106,7 @@ def hamming_topk_packed(
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """XOR + popcount + lane-sum + top-k (reference query_sort/query_heap,
     BitVecEngine.cpp:61-197 — all four method variants produce the same set;
-    EA has no TPU counterpart). Streamed in row blocks so the (nq, block, W)
+    EA has no batched counterpart). Streamed in row blocks so the (nq, block, W)
     XOR intermediate stays bounded."""
     n, w = db.shape
     nq = queries.shape[0]
@@ -150,7 +150,7 @@ def hamming_topk_matmul(
     k: int,
     exact: bool = False,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """hamming = pop(q) + pop(x) − 2·(q01·x01ᵀ) — the MXU path."""
+    """hamming = pop(q) + pop(x) − 2·(q01·x01ᵀ) — the matmul path."""
     inner = jnp.dot(q01.astype(jnp.bfloat16), db01.astype(jnp.bfloat16).T,
                     preferred_element_type=jnp.float32)
     q_pop = jnp.sum(q01.astype(jnp.int32), axis=1)
@@ -333,7 +333,7 @@ class BinaryIndex:
         keeps exactly the zero-distance rows); stop at the first round where
         ≤ k such rows remain (or after the last sub-vector) and answer with
         the top-k by the accumulated-so-far distance *among the rows that
-        survived every earlier round*. The TPU version evaluates all rounds'
+        survived every earlier round*. The batched version evaluates all rounds'
         cumulative distances with static shapes, selects each query's
         stopping round, and masks rows whose cumulative distance was nonzero
         entering that round — identical answers, no data-dependent loop.
@@ -378,10 +378,10 @@ class BinaryIndex:
         Hamming distances on demand, which amounts to ranking rows
         **lexicographically** by their per-subvector distance vector
         (d_0, d_1, …) — a different order from the Sort variant's
-        cumulative-distance answer. TPU-native split: the per-subvector
+        cumulative-distance answer. Batched split: the per-subvector
         distance stack is one batched XOR+popcount dispatch; the
         lexicographic top-k runs on host (``np.lexsort``), since a
-        multi-word sort key has no MXU mapping and this path exists for
+        multi-word sort key has no matmul mapping and this path exists for
         behavior parity, not throughput (SURVEY B10 marks it CPU-idiom).
 
         Returns (sub_dists (nq, k, S) int32 — the reference's
@@ -508,7 +508,7 @@ class ScalarLUTIndex:
     as :class:`BinaryIndex`), per-dim centroids = in-bucket means between
     matlab-style quantile boundaries (``centroidsQuantile``, hpp:811-840;
     empty buckets fall back to the boundary midpoint), u8 codes per kept
-    dim, and ADC search over per-dim LUTs — which on TPU is simply the VAQ
+    dim, and ADC search over per-dim LUTs — which here is simply the VAQ
     machinery with L=1 subspaces, so encode/search/refine are delegated to
     a :class:`vaq_tpu.vaq.VAQIndex` built over the per-dim codebooks.
     """
@@ -744,7 +744,7 @@ def _hamming_probe_scan(qp_f32, qwords, bucket_words, bucket_ids, centroids,
     vals, pos = probe_ops.blocked_cluster_topk(score_fn, nb, kk)
     vals, pos = vals[:ncl], pos[:ncl]
     # resolve ids cluster-major with a per-row gather — no (ncl, qcap, cap)
-    # broadcast materialization (1.3 GB at 1M rows in the r1 version)
+    # broadcast materialization (1.3 GB at 1M rows)
     ids_k = jnp.take_along_axis(bucket_ids, pos.reshape(ncl, qcap * kk),
                                 axis=1).reshape(ncl, qcap, kk)
     top_s, top_i = probe_ops.gather_merge_topk(vals, ids_k, ok, ent_c, ent_r,
@@ -760,7 +760,7 @@ def query_hamming_clusters(index: BinaryIndex, state: HammingClusterState,
     least until ≥ k members have been seen (the reference's dynamic rule,
     queryWithClusterInfo BitVecEngine.cpp:204-449/537-551) — and
     Hamming-scan only their buckets, in ONE batched device dispatch
-    (round-2 redesign of the per-query host loop, VERDICT r1 #4)."""
+    (a batched redesign of the reference's per-query loop)."""
     from vaq_tpu.ops import probe as probe_ops
 
     queries = np.asarray(queries, dtype=np.float32)

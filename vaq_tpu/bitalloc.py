@@ -16,7 +16,7 @@ Because the smoothness constraints couple only adjacent variables and the
 budget is a single equality, the problem decomposes into a DP over
 (subspace, x_i, partial sum) — ≤ 64 × 17 × (budget+1) states — solved exactly
 on the host in milliseconds at train time. This is a small host-side solve,
-not a TPU kernel (SURVEY §2.1 V5).
+not a device kernel (SURVEY §2.1 V5).
 
 The per-*dimension* MILP of the binary engine (``BitVecEngine.hpp:339-507``)
 uses the same constraint family and reuses this solver with L=1 subspaces.

@@ -1,6 +1,6 @@
 """demo_bitvecengine — query-mode matrix CLI, mirroring
 ``examples/demo_bitvecengine.cpp:41-396``. The reference's 10 query modes map
-onto the TPU engine as:
+onto the engine as:
 
   mode 0  binary only              → BinaryIndex.query
   mode 1  binary + rerank          → query_rerank
@@ -49,9 +49,6 @@ def main(argv=None) -> int:
                         "DistanceFunctions.hpp:164/218); exact metric for "
                         "modes 4-6/9 (l2/manhattan, hpp:232/254)")
     args = p.parse_args(argv)
-
-    from vaq_tpu.cli import apply_platform_env
-    apply_platform_env()
 
     from vaq_tpu import io, metrics
     from vaq_tpu.binary import BinaryIndex

@@ -22,9 +22,6 @@ def main(argv=None) -> int:
     p.add_argument("--synthetic", type=int, default=0, metavar="N")
     args = p.parse_args(argv)
 
-    from vaq_tpu.cli import apply_platform_env
-    apply_platform_env()
-
     from vaq_tpu import io, kmeans
     from vaq_tpu.cli.demo_vaq import load_matrix
 

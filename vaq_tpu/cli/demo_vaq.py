@@ -55,7 +55,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--backend", default="auto",
                    choices=["auto", "decoded", "decoded8", "codes", "lut",
                             "lut_gather", "fast4", "ivf"],
-                   help="engine scan backend (VERDICT r3 #8: the full "
+                   help="engine scan backend (the full "
                         "engine surface — decoded bf16 / decoded8 int8 / "
                         "codes decode-then-dot / lut / lut_gather / fast4 "
                         "one-hot / ivf cluster probe)")
@@ -79,9 +79,6 @@ def load_matrix(path: str, fmt: str, dim: int, max_rows: int) -> np.ndarray:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-
-    from vaq_tpu.cli import apply_platform_env
-    apply_platform_env()
 
     from vaq_tpu import metrics
     from vaq_tpu.config import parse_hardcoded_bits, parse_method_string

@@ -1,4 +1,4 @@
-"""demo_vaq_paramsearch — hyperparameter grid search, the working TPU
+"""demo_vaq_paramsearch — hyperparameter grid search, the working
 counterpart of the reference's bit-rotted ``examples/demo_vaq_paramsearch.cpp``
 (excluded from its build; grid at cpp:214-231): sweep (subspaces, min_bits,
 max_bits) at a fixed bit budget, build + search each config, and emit a CSV
@@ -32,9 +32,6 @@ def main(argv=None) -> int:
     p.add_argument("--out", default="paramsearch.csv")
     p.add_argument("--synthetic", type=int, default=0, metavar="N")
     args = p.parse_args(argv)
-
-    from vaq_tpu.cli import apply_platform_env
-    apply_platform_env()
 
     from vaq_tpu import metrics
     from vaq_tpu.config import VAQConfig, SearchMethod

@@ -2,7 +2,7 @@
 
 The reference has no serving surface (its demos are batch CLIs,
 ``examples/demo_vaq.cpp:19``); this is the deployment entry point for the
-TPU build: load an index artifact (or build one from a synthetic dataset
+build: load an index artifact (or build one from a synthetic dataset
 for smoke tests), start the continuous batcher, and expose
 ``POST /search`` / ``GET /stats`` / ``GET /healthz``.
 
@@ -22,10 +22,6 @@ import numpy as np
 
 
 def main(argv=None) -> int:
-    from vaq_tpu.cli import apply_platform_env
-
-    apply_platform_env()
-
     p = argparse.ArgumentParser(prog="serve", description=__doc__)
     p.add_argument("--index", default="", help="saved VAQIndex .npz artifact")
     p.add_argument("--synthetic", type=int, default=0,

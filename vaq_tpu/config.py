@@ -28,7 +28,7 @@ class SearchMethod(enum.IntFlag):
     """Scan-strategy bitmask, value-compatible with the reference enum."""
 
     SORT = 0x01
-    EA = 0x02      # early abandon (CPU idiom; maps to the exhaustive scan on TPU)
+    EA = 0x02      # early abandon (CPU idiom; maps to the exhaustive scan)
     TI = 0x04      # triangle-inequality cluster pruning -> IVF-style cluster probe
     FAST = 0x08    # u8-quantized-LUT scan (reference: AVX2 shuffle)
     FAST2 = 0x10   # f32-LUT scan (reference: AVX2 gather)

@@ -5,7 +5,7 @@ missing large blobs (`.MISSING_LARGE_BLOBS`), and its own fallback is to
 regenerate groundtruth by brute force (``demo_vaq_paramsearch.cpp:144-155``,
 ``demo_bitvecengine.cpp:335-355``). We do the same: synthetic SIFT-like data
 with anisotropic variance (so the variance-aware bit allocation has signal)
-plus an exact-search groundtruth generator on the TPU.
+plus an exact-search groundtruth generator on the device.
 """
 
 from __future__ import annotations

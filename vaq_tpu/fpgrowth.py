@@ -11,7 +11,7 @@ ids made globally unique by adding a per-subspace offset
 This subsystem is host-side by design: it is a train-time/offline analysis
 tool (the reference only invokes it inside a ``#if 0`` block,
 ``demo_vaq.cpp:130-261``), not a query-path kernel — there is nothing for
-the MXU here, so it stays NumPy/pure-Python.
+the device here, so it stays NumPy/pure-Python.
 
 Note one deliberate divergence: the reference computes the per-subspace item
 offsets as ``offsets[i] = centroidsNum[i] + offsets[i-1]``

@@ -5,7 +5,7 @@ fvecs / bvecs / ivecs / headerless-bin / ascii readers (``IO.hpp:91-334``),
 sampled readers (``IO.hpp:431-518``), KNN-result CSV writer (``IO.hpp:706``),
 and the centroid/codebook artifact persistence (``IO.hpp:522-772``).
 
-The TPU build reads with numpy (memory-mapped where possible) and persists the
+This build reads with numpy (memory-mapped where possible) and persists the
 *full* index state as a single ``.npz`` — fixing the reference's gap of not
 saving the eigenvectors alongside the centroids (SURVEY §5: saved centroids
 alone cannot serve fresh queries there).

@@ -1,7 +1,7 @@
 """Native host-runtime components with transparent numpy fallback.
 
 Builds ``vaq_native.cpp`` (CPython C API + OpenMP) on first import via
-setuptools and caches the shared object next to this file. The TPU compute
+setuptools and caches the shared object next to this file. The device compute
 path never goes through here — these are the host-side pieces that are C++
 in the reference too (dataset parsing, bit packing, streamed top-k merge).
 If no compiler is available the numpy implementations in `vaq_tpu.binary` /

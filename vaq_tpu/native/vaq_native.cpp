@@ -1,7 +1,7 @@
 // vaq_native — host-side native runtime components.
 //
-// The TPU compute path is JAX/XLA/Pallas; these are the *host* pieces that
-// the reference implements in C++ and that stay on the CPU in any TPU
+// The device compute path is JAX/XLA/Pallas; these are the *host* pieces that
+// the reference implements in C++ and that stay on the CPU in any
 // deployment: dataset parsing (utils/IO.hpp readers), the MSB-first
 // bit-string packer of the binary engine (BitVecEngine.hpp:564-588), and the
 // streaming top-k merge of the disk-resident scan (BitVecEngine.cpp:1599).

@@ -2,9 +2,9 @@
 
 Replaces the reference's scalar/SIMD distance suite
 (``utils/DistanceFunctions.hpp:17-263``, ``utils/Math.hpp:8-171`` —
-``fvec_L2sqr_ny``, ``euclideanDist*``, early-abandon variants): on TPU every
-L2 computation is the matmul identity ``‖q−x‖² = ‖q‖² − 2·q·xᵀ + ‖x‖²`` so
-the MXU does the work; early-abandon variants have no TPU counterpart
+``fvec_L2sqr_ny``, ``euclideanDist*``, early-abandon variants): every L2
+computation is the matmul identity ``‖q−x‖² = ‖q‖² − 2·q·xᵀ + ‖x‖²`` so
+matmuls do the work; early-abandon variants have no batched counterpart
 (SURVEY §2.3 S2 — the exhaustive scan is the fast path).
 
 Also hosts the brute-force exact top-k search (the reference's queryNaive*

@@ -1,4 +1,4 @@
-"""Decoded-database scan backend: ADC distances as one MXU matmul.
+"""Decoded-database scan backend: ADC distances as one matmul.
 
 Because the subspaces partition the projected dimensions, the ADC distance is
 algebraically exact in decoded form:
@@ -7,28 +7,24 @@ algebraically exact in decoded form:
 
 so scanning the *decoded* database with the matmul identity reproduces the
 reference scan family's results (searchSort/searchHeap, VAQ.cpp:1729-1776)
-while running the MXU at full tilt instead of doing per-row LUT gathers. The
-decoded rows are stored in bfloat16 (½ the HBM traffic of f32; codebook
-quantization error dwarfs bf16 rounding) with f32 row norms precomputed.
+as matmuls instead of per-row LUT gathers. The decoded rows are stored in
+bfloat16 (½ the device-memory traffic of f32; codebook quantization error
+dwarfs bf16 rounding) with f32 row norms precomputed.
 
-Top-k strategy (measured on TPU v5e, 1M×128d, 256-query batches):
-  * ``jax.lax.top_k`` over the scan is catastrophically slow (~90 ms/batch —
-    it sorts); a blocked scan does not help.
-  * ``jax.lax.approx_max_k`` (the TPU PartialReduce op) fuses into the
-    matmul consumer and runs at the HBM floor (~1.8 ms/batch, ≥98% of the
-    matmul-only time).
-So the scan maximizes the monotone score ``2·q·x̂ − ‖x̂‖²`` (the per-query
-‖q‖² term cannot change the ranking), takes the approximate top-k, then
-**exactly rescores** the k winners in f32 and sorts them — distances are
-exact; only membership of the top-k set is approximate, with recall set by
-``recall_target`` (0.99+; misses are recovered by the refine stage exactly
-as the reference's refine recovers ADC misses, VAQ.cpp:849-876).
+Top-k strategy: the scan maximizes the monotone score ``2·q·x̂ − ‖x̂‖²``
+(the per-query ‖q‖² term cannot change the ranking), selects 2k candidates
+with ``jax.lax.approx_max_k`` (on the GPU and the CPU XLA lowers it to an
+exact selection over the materialised (nq, n) score matrix), then **exactly
+rescores** the candidates in f32 and sorts them — distances are exact; only
+membership of the top-k set can be approximate, with recall set by
+``recall_target`` (misses are recovered by the refine stage exactly as the
+reference's refine recovers ADC misses, VAQ.cpp:849-876).
 
-Trade-off vs the codes+LUT scan (`scan_jax` / the Pallas kernel):
+Trade-off vs the codes-resident scans (`scan_codes`, `scan_jax`):
   * decoded bf16 row = 2·d bytes vs Σbits/8 bytes of codes (d=128, 256-bit
-    budget: 256 B vs 32 B — 8× more HBM per row), so
-  * decoded is the QPS backend while the database fits HBM (~10M rows/chip
-    at d=128); codes+LUT is the capacity backend.
+    budget: 256 B vs 32 B — 8× more device memory per row), so
+  * decoded is the throughput backend while the database fits device
+    memory; the codes tier is the capacity backend.
 """
 
 from __future__ import annotations
@@ -50,9 +46,8 @@ def decode_db(codes_t: jnp.ndarray, centroids: jnp.ndarray,
               block_rows: int = 65536) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Materialize decoded rows (bf16) + f32 squared norms.
 
-    codes_t: (M, n) ints (transposed storage — the u8 (32, 128) tile packs
-    (M, n) exactly; (n, M) lane-pads 4×); centroids: (M, C, L) f32 →
-    returns (decoded (n, M*L) bf16, norms (n,) f32).
+    codes_t: (M, n) ints (the index's transposed storage); centroids:
+    (M, C, L) f32 → returns (decoded (n, M*L) bf16, norms (n,) f32).
     """
     m, n = codes_t.shape
     _, c, l = centroids.shape
@@ -63,7 +58,7 @@ def decode_db(codes_t: jnp.ndarray, centroids: jnp.ndarray,
     def dec(i):
         # per-subspace gather of (C, L) by (nb,) — one-time cost at build.
         # (int32 widening happens per block: a whole-array cast would
-        # transiently cost 4 B/code — 12.8 GB at 100M rows × 32 subspaces.)
+        # transiently cost 4 B/code.)
         blk = jax.lax.dynamic_slice_in_dim(
             codes_p, i * block_rows, block_rows, axis=1).astype(jnp.int32)
         g = jax.vmap(lambda cent_s, code_s: cent_s[code_s],
@@ -83,12 +78,10 @@ def decode_db_int8(
     """Int8 variant of :func:`decode_db` — the capacity tier.
 
     Rows are stored as int8 with one per-dimension scale (folded into the
-    query at search time), 4× less HBM than bf16. Storage is TRANSPOSED
-    (D, n): the int8 (32, 128) tile packs any D that is a multiple of 32
-    exactly, while row-major (n, D) lane-pads D up to 128 (a 1.33×
-    expansion at the Fig.-11 d=96 — 3.2 GB of waste at 100M rows). This is
-    the TPU-native answer to the reference's u8-LUT fast scan (V14-V16):
-    *quantize the reconstruction, not the lookup table*.
+    query at search time), half the device memory of bf16. Storage is
+    TRANSPOSED (D, n). This is the matmul answer to the reference's u8-LUT
+    fast scan (V14-V16): *quantize the reconstruction, not the lookup
+    table*.
 
     The output is written block-by-block into one carried buffer (in-place
     dynamic updates inside fori_loop), so transients stay O(block). Pass a
@@ -113,7 +106,7 @@ def decode_db_int8(
     def body(i, carry):
         buf, nbuf = carry
         # per-block int32 widening (see decode_db) — keeps the transient
-        # device footprint O(block) instead of O(n) at 100M-row scale.
+        # device footprint O(block) instead of O(n).
         blk = jax.lax.dynamic_slice_in_dim(
             codes_p, i * block_rows, block_rows, axis=1).astype(jnp.int32)
         g = jax.vmap(lambda cent_s, code_s: cent_s[code_s],
@@ -144,14 +137,11 @@ def decoded8_scan_topk(
     exact: bool = False,
     recall_target: float = 0.99,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Int8 scan: fold per-dim scales into the query, quantize the query with
-    one global scale, run the int8 MXU matmul, approx-top-k, exact rescore.
+    """Int8 scan: fold per-dim scales into the query, run the matmul on
+    int8 rows widened to bf16, approx-top-k, exact rescore.
 
     decoded_rescore: rows used for the exact rescore — pass the (D, n) int8
-    matrix itself (dequantized on the fly). (Reconstructing the winners from
-    codes + centroids instead was tried and measured 3× slower — the u8
-    column gather + per-subspace table lookups lower much worse in XLA than
-    one int8 column gather.)
+    matrix itself (dequantized on the fly).
     """
     n = decoded8.shape[1]                                 # (D, n) transposed
     if n_valid is not None:
@@ -159,19 +149,17 @@ def decoded8_scan_topk(
         norms = jnp.where(col < n_valid, norms, jnp.inf)
 
     # Fold the per-dim scales into the query and let XLA fuse the int8→bf16
-    # convert into the matmul: HBM traffic stays int8 (the point of this
-    # tier), the MXU runs bf16, and — measured — the epilogue fuses into
-    # approx_max_k where the int8×int8→i32→f32 form did not. int8 values are
-    # exact in bf16; only the query side carries bf16 rounding, and the k
-    # winners are rescored exactly below. The (D, n) storage is already the
-    # matmul's rhs orientation.
+    # convert into the matmul: device-memory traffic stays int8 (the point
+    # of this tier). int8 values are exact in bf16; only the query side
+    # carries bf16 rounding, and the winners are rescored exactly below.
+    # The (D, n) storage is already the matmul's rhs orientation.
     q_folded = (queries_proj / dim_scales[None, :]).astype(jnp.bfloat16)
     inner = jnp.dot(q_folded, decoded8.astype(jnp.bfloat16),
+                    precision=jax.lax.Precision.DEFAULT,
                     preferred_element_type=jnp.float32)   # ≈ q·x̂
     score = 2.0 * inner - norms[None, :]
     # Over-fetch 2k candidates; the exact f32 rescore below repairs
-    # ordering among the fetched set (deeper fetches measured useless —
-    # see decoded_scan_topk).
+    # ordering among the fetched set.
     kk = min(max(2 * k, k + 16), n)
     if exact:
         vals, idx = jax.lax.top_k(score, kk)
@@ -186,13 +174,13 @@ def decoded8_scan_topk(
         vals = jnp.pad(vals, ((0, 0), (0, k - kk)),
                        constant_values=-jnp.inf)
     if n > _RESCORE_GATHER_MAX:
-        # Column-gathering kk winners from the (D, n) int8 matrix makes XLA
-        # relayout-copy the WHOLE array (+11.9 GB at 100M — it OOMed the
-        # first capacity run). At capacity scale return distances derived
-        # from the already-f32 scores instead: d² = ‖q‖² − score, exact up
-        # to the scan's own bf16·int8 rounding; membership is protected by
-        # the 2k over-fetch, and exact distances come from the refine stage
-        # (exact_rescore_chunked), as in the reference's Fig. 11 pipeline.
+        # At capacity scale, skip the column gather of the winners from the
+        # (D, n) int8 matrix (it can make XLA copy the whole array) and
+        # return distances derived from the already-f32 scores instead:
+        # d² = ‖q‖² − score, exact up to the scan's own bf16·int8 rounding;
+        # membership is protected by the 2k over-fetch, and exact distances
+        # come from the refine stage (exact_rescore_chunked), as in the
+        # reference's Fig. 11 pipeline.
         qn = jnp.sum(queries_proj * queries_proj, axis=1, keepdims=True)
         d2 = jnp.maximum(qn - vals, 0.0)
         d2 = jnp.where(idx >= 0, d2, jnp.inf)
@@ -237,7 +225,7 @@ def decoded_scan_topk(
 
     decoded: (n, D) bf16; norms: (n,) f32; queries_proj: (nq, D) f32.
     Returns (sq_dists (nq, k) f32 exact, labels (nq, k) i32), ascending.
-    ``exact=True`` uses a true top_k (slow on TPU; for parity tests).
+    ``exact=True`` uses a true top_k (for parity tests).
     """
     n = decoded.shape[0]
     if n_valid is not None:
@@ -245,17 +233,12 @@ def decoded_scan_topk(
         norms = jnp.where(col < n_valid, norms, jnp.inf)
 
     qx = jnp.dot(queries_proj.astype(jnp.bfloat16), decoded.T,
+                 precision=jax.lax.Precision.DEFAULT,
                  preferred_element_type=jnp.float32)      # (nq, n)
     score = 2.0 * qx - norms[None, :]                     # = ‖q‖² − d², monotone
     # Over-fetch 2k then rescore exactly — recovers rows that bf16 score
-    # rounding (or the approx partial-reduce windows) shuffled just outside
-    # the top-k (VERDICT r1 weak #9; quantified in test_approx_miss_rate).
-    # Measured on-chip (r5 verify4): deeper fetches buy nothing — at 1M,
-    # kk=2k reads 0.3221 vs the exact-top_k ceiling 0.3226 (0.05 pt) while
-    # kk=4k costs 29% QPS and kk=8k falls off the approx_max_k cliff
-    # (495k → 353k → 73k QPS). The r4 "oracle gap" attributed to this
-    # path was actually the bf16-default-matmul groundtruth corruption
-    # fixed in vaq_tpu/__init__ (scripts/oracle_bisect.py history).
+    # rounding (or an approximate selection) shuffled just outside the
+    # top-k (quantified in test_approx_miss_rate).
     kk = min(max(2 * k, k + 16), n)
     if exact:
         vals, idx = jax.lax.top_k(score, kk)

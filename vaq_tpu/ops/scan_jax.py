@@ -1,27 +1,27 @@
 """ADC lookup-table build + code scan with fused streaming top-k (XLA path).
 
-This is the TPU re-design of the reference's per-query scan family
+This is the batched re-design of the reference's per-query scan family
 (``searchSort``/``searchHeap``/``searchEarlyAbandon``/``searchFast*``,
 ``VAQ.cpp:1694-2046``). Instead of a per-query loop with per-row gathers and
 a hand-rolled heap, the whole query batch is processed at once:
 
 * LUT build (= ``VAQ::CreateLUT``, VAQ.hpp:127-180): one batched einsum
-  ``lut[q,s,c] = ‖q_s − C_{s,c}‖²`` — MXU work, replaces the AVX2 FMA loops.
+  ``lut[q,s,c] = ‖q_s − C_{s,c}‖²`` — matmul work, replaces the AVX2 FMA
+  loops.
 * Scan (= the ``dist += lut[code]`` inner hot loop, VAQ.cpp:1741-1748): codes
   are streamed in row blocks; per block a vmapped per-subspace gather from the
-  VMEM-resident LUT accumulates distances for all queries, then a top-k merge
+  LUT accumulates distances for all queries, then a top-k merge
   folds the block into the running best-k (the Faiss-style heap of
   ``utils/Heap.hpp`` becomes ``jax.lax.top_k``, SURVEY §2.3 S5).
 
 Early-abandon (V12) is intentionally absent: per-row data-dependent exits
-don't vectorize on TPU; the exhaustive blocked scan IS the fast path, and the
+don't vectorize; the exhaustive blocked scan IS the fast path, and the
 cluster-probe module (`vaq_tpu.ivf`) provides the pruning knob (SURVEY §2.1
 V12/V13).
 
 The u8-quantized-LUT path (reference FAST/Bolt-style shuffle scan, V14-V16)
-is supported by passing a quantized LUT plus per-subspace scale/offset for
-dequantized accumulation in int32 — on TPU the win is the 4× smaller LUT
-footprint in VMEM, not byte shuffles.
+is supported by dequantized LUTs (the accuracy of the quantization) or by
+:func:`fast_scan_topk` (its winner-selection semantics).
 """
 
 from __future__ import annotations
@@ -47,7 +47,7 @@ def build_luts(queries_proj: jnp.ndarray, centroids: jnp.ndarray) -> jnp.ndarray
     nq = queries_proj.shape[0]
     m, c, l = centroids.shape
     q = queries_proj.reshape(nq, m, l)
-    # ‖q‖² − 2·q·cᵀ + ‖c‖²  per subspace; einsum hits the MXU.
+    # ‖q‖² − 2·q·cᵀ + ‖c‖²  per subspace, as one batched einsum
     qc = jnp.einsum("qml,mcl->qmc", q, centroids,
                     preferred_element_type=jnp.float32)
     q2 = jnp.sum(q * q, axis=2)[:, :, None]
@@ -128,6 +128,34 @@ def adc_scan_topk(
     (best_d, best_i), _ = jax.lax.scan(
         body, init, (blocks, jnp.arange(nblocks, dtype=jnp.int32)))
     return best_d, best_i
+
+
+@functools.partial(jax.jit, static_argnames=("k", "block_rows"))
+def fast_scan_topk(
+    codes: jnp.ndarray,
+    luts: jnp.ndarray,
+    luts8: Optional[jnp.ndarray],
+    k: int,
+    n_valid: Optional[jnp.ndarray] = None,
+    block_rows: int = 32768,
+) -> Tuple[jnp.ndarray, jnp.ndarray]:
+    """The reference's FAST semantics (VAQ.cpp:1778-1836): winners are the
+    k rows with the smallest sums of raw u8 table entries ``luts8``
+    (nq, M, C), then the winners' distances are recomputed exactly from the
+    f32 ``luts``. Returned ascending by the exact distance.
+
+    The u8 sums run through :func:`adc_scan_topk` in f32, which is exact
+    integer arithmetic (every partial sum < 255·M ≤ 2²⁴), so equal sums tie
+    and ``top_k`` keeps the lower row id. Without ``luts8`` (no learned
+    quantization) this is the exact f32 scan."""
+    _, ids = adc_scan_topk(codes, luts if luts8 is None else luts8, k,
+                           n_valid=n_valid, block_rows=block_rows)
+    cand = codes[jnp.maximum(ids, 0)].astype(jnp.int32)      # (nq, k, M)
+    d2 = jnp.sum(jnp.take_along_axis(luts, cand.transpose(0, 2, 1), axis=2),
+                 axis=1)                                     # (nq, k)
+    d2 = jnp.where(ids >= 0, d2, jnp.inf)
+    neg, pos = jax.lax.top_k(-d2, k)
+    return -neg, jnp.take_along_axis(ids, pos, axis=1)
 
 
 @functools.partial(jax.jit, static_argnames=("k",))

@@ -2,7 +2,7 @@
 
 The reference's only parallelism is OpenMP threads and a disk-resident
 chunk-scan with per-chunk top-k merge (``BitVecEngine.cpp:1441-1624``); SURVEY
-§2.5/§3.5 identifies that merge pattern as the blueprint for the TPU build:
+§2.5/§3.5 identifies that merge pattern as the blueprint for the device build:
 code rows sharded over the mesh, LUTs replicated, per-shard top-k merged via
 all-gather — the partial-answer "ordered section" becomes an XLA collective.
 """

@@ -2,7 +2,7 @@
 
 The multi-device training step of the framework. Training data rows are
 sharded over the "db" mesh axis; each Lloyd iteration computes local
-per-cluster sums/counts (matmuls on the MXU) and reduces them with a single
+per-cluster sums/counts (matmuls) and reduces them with a single
 ``psum`` over the axis — the collective counterpart of the reference's
 OpenMP private-accumulate + ordered-merge k-means (``KMeans.hpp:562-595``).
 """

@@ -6,10 +6,10 @@ Axis convention:
   * ``"q"``  — query batch (data parallel): optional second axis for
     multi-host serving where each host takes a slice of the query stream.
 
-On a real pod, ``jax.distributed.initialize()`` must run first on each host;
-the mesh then spans all global devices, with "q" mapped to the DCN-connected
-host dimension and "db" to the ICI-connected intra-slice dimension so the
-top-k merge collective stays on ICI.
+The cards of one host are joined all to all by NVLink, so any device order
+serves equally: the mesh shape follows the algorithm alone. Across hosts,
+``jax.distributed.initialize()`` runs first on each host and the mesh spans
+all global devices (see ``multihost.pod_mesh``).
 """
 
 from __future__ import annotations

@@ -1,19 +1,19 @@
-"""Multi-host initialization + pod-mesh helpers.
+"""Multi-host initialization + serving-mesh helpers.
 
-On a TPU pod slice, each host runs the same program;
-``jax.distributed.initialize()`` wires the hosts together and
-``jax.devices()`` then spans the global slice. The search programs in
+Across hosts each process runs the same program;
+``jax.distributed.initialize()`` wires them together and ``jax.devices()``
+then spans every host's cards. The search programs in
 `vaq_tpu.parallel.sharded` are already global-SPMD (shard_map over named
 axes), so multi-host is a mesh-construction concern only:
 
-* ``"db"`` (database rows) should map to the ICI-connected intra-slice
-  device dimension — the k-row top-k merge all_gather rides ICI;
+* ``"db"`` (database rows) spans the cards of one host — they are joined all
+  to all by NVLink, which carries the k-row top-k merge all_gather;
 * ``"q"`` (query data parallelism) maps to the host dimension — query
-  ingest/result egress is per-host, and no hot-path collective crosses DCN.
+  ingest/result egress is per-host, and no hot-path collective crosses hosts.
 
-Single-chip sessions (like this dev environment) exercise the identical
-code via ``xla_force_host_platform_device_count`` virtual meshes
-(tests/conftest.py) and the driver's ``dryrun_multichip``.
+Single-process runs exercise the identical code via
+``xla_force_host_platform_device_count`` virtual meshes (tests/conftest.py)
+and ``__graft_entry__.dryrun_multichip``.
 """
 
 from __future__ import annotations
@@ -28,31 +28,34 @@ from jax.sharding import Mesh
 def initialize_distributed(coordinator_address: Optional[str] = None,
                            num_processes: Optional[int] = None,
                            process_id: Optional[int] = None) -> None:
-    """Initialize multi-host JAX (no-op when single-process).
+    """Initialize multi-host JAX.
 
-    On Cloud TPU the arguments are auto-detected from the environment;
-    pass them explicitly elsewhere.
+    With a ``coordinator_address`` (``host:port``), ``num_processes`` and
+    ``process_id`` are required and any failure raises: a process that was
+    told to join a cluster must not serve alone. Without one, JAX's own
+    cluster detection is tried, and a plain single-process run (nothing
+    detected) stays a no-op.
     """
     if jax.process_count() > 1:
         return  # already initialized
+    if coordinator_address is not None:
+        jax.distributed.initialize(coordinator_address=coordinator_address,
+                                   num_processes=num_processes,
+                                   process_id=process_id)
+        return
     try:
-        if coordinator_address is None:
-            jax.distributed.initialize()
-        else:
-            jax.distributed.initialize(coordinator_address=coordinator_address,
-                                       num_processes=num_processes,
-                                       process_id=process_id)
+        jax.distributed.initialize()
     except (RuntimeError, ValueError):
-        # single-process run (dev box / tests): nothing to do
+        # no cluster environment detected: single-process run
         pass
 
 
 def pod_mesh(q_hosts: bool = True) -> Tuple[Mesh, Optional[str]]:
     """Build the serving mesh for the current topology.
 
-    With q_hosts=True on a multi-host slice: ("q", "db") with q = host
-    count, db = devices per host (ICI). Otherwise a flat ("db",) mesh over
-    all global devices.
+    With q_hosts=True across hosts: ("q", "db") with q = host count, db =
+    devices per host. Otherwise a flat ("db",) mesh over all global
+    devices.
     Returns (mesh, q_axis) suitable for ``VAQIndex.shard``.
     """
     devs = jax.devices()

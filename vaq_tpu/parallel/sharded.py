@@ -1,6 +1,6 @@
 """Sharded search: per-shard top-k → all-gather → global top-k.
 
-TPU re-design of the reference's disk-resident chunked scan
+Device-mesh re-design of the reference's disk-resident chunked scan
 (``BitVecEngine.cpp:1441-1624``): there, file chunks are scanned with
 per-chunk top-k and merged into global answers by concatenate+sort+resize
 (merge at cpp:1599-1611), with ids offset by the chunk base (cpp:1488). Here
@@ -173,12 +173,11 @@ def sharded_decoded8_search(
     q_axis: Optional[str] = None,
     db_axis: str = "db",
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Sharded int8 capacity tier (VERDICT r2 #4): the (D, n) transposed int8
-    rows are column-sharded over the db axis (the row axis of the database),
-    per-dim scales and queries replicated (or q-sharded), per-shard
-    ``decoded8_scan_topk`` + the k-row all_gather merge. This is the tier
-    that actually *needs* a pod — 128 B/row serves ~100M rows/chip; sharding
-    extends it linearly (the disk-resident blueprint,
+    """Sharded int8 capacity tier: the (D, n) transposed int8 rows are
+    column-sharded over the db axis (the row axis of the database), per-dim
+    scales and queries replicated (or q-sharded), per-shard
+    ``decoded8_scan_topk`` + the k-row all_gather merge. Sharding extends
+    the tier's capacity linearly (the disk-resident blueprint,
     BitVecEngine.cpp:1441-1624, with chunks = shards)."""
     n_pad = decoded8.shape[1]
     nshards = mesh.shape[db_axis]
@@ -210,8 +209,7 @@ def sharded_decoded8_search(
 
 @functools.partial(
     jax.jit,
-    static_argnames=("k", "mesh", "block_rows", "interpret", "q_axis",
-                     "db_axis"),
+    static_argnames=("k", "mesh", "block_rows", "q_axis", "db_axis"),
 )
 def sharded_codes_search(
     codes_t: jnp.ndarray,
@@ -222,21 +220,19 @@ def sharded_codes_search(
     n_total: jnp.ndarray,
     mesh: Mesh,
     block_rows: int = 512,
-    interpret: bool = False,
     q_axis: Optional[str] = None,
     db_axis: str = "db",
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Sharded codes-resident tier (VERDICT r2 #4): the (M, n) transposed u8
-    codes are column-sharded over the db axis, the packed decode table +
-    rescore rows replicated (tiny — C rows of d floats), per-shard
-    decode-then-dot Pallas scan + the k-row all_gather merge. At 32 B/row
-    this is the billion-row tier: a v5e-256 pod holds ~100B rows of
-    256-bit codes."""
+    """Sharded codes-resident tier: the (M, n) transposed u8 codes are
+    column-sharded over the db axis, the decode tables replicated (tiny —
+    C rows of d values), per-shard decode-then-dot window scan + the k-row
+    all_gather merge. At M bytes/row this is the tier that holds the most
+    rows per device."""
     n_pad = codes_t.shape[1]
     nshards = mesh.shape[db_axis]
     shard_rows = n_pad // nshards
 
-    from vaq_tpu.ops import scan_pallas
+    from vaq_tpu.ops import scan_codes
 
     q_spec = P(q_axis, None) if q_axis else P(None, None)
     out_spec = (P(q_axis, None) if q_axis else P(None, None),) * 2
@@ -245,10 +241,10 @@ def sharded_codes_search(
         sidx = jax.lax.axis_index(db_axis)
         base = sidx * shard_rows
         n_valid_local = jnp.clip(n_total_l - base, 0, shard_rows)
-        d, i = scan_pallas.decode_scan_topk(
+        d, i = scan_codes.decode_scan_topk(
             codes_l, table_l, rows_l, qp_l, k,
             n_valid=n_valid_local.astype(jnp.int32),
-            block_rows=block_rows, interpret=interpret)
+            block_rows=block_rows)
         gi = jnp.where(i >= 0, i + base, -1)
         d = jnp.where(i >= 0, d, jnp.inf)
         return _local_topk_merge(d, gi, k, db_axis)
@@ -265,9 +261,8 @@ def sharded_codes_search(
 
 @functools.partial(
     jax.jit,
-    static_argnames=("k", "mesh", "p_visit", "p_max", "qcap", "gs", "rt",
-                     "exact", "transposed", "interpret", "q_axis",
-                     "db_axis"),
+    static_argnames=("k", "mesh", "p_visit", "p_max", "qcap", "gs",
+                     "exact", "transposed", "q_axis", "db_axis"),
 )
 def sharded_ivf_search(
     centroids: jnp.ndarray,     # (ncl_pad, seg_dims) cluster-sharded
@@ -283,20 +278,17 @@ def sharded_ivf_search(
     p_max: int,
     qcap: int,
     gs: int,
-    rt: int,
     exact: bool = False,
     transposed: bool = False,
-    interpret: bool = False,
     q_axis: Optional[str] = None,
     db_axis: str = "db",
     rescore_rows: Optional[jnp.ndarray] = None,   # (n_pad, D) P(db, None)
     rescore_norms: Optional[jnp.ndarray] = None,  # (n_pad,) P(db), +inf dead
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Sharded IVF/TI cluster probe (VERDICT r3 #6): buckets sharded over
-    the CLUSTER axis, each shard probing its local clusters with the same
-    visit fraction, per-shard ``ivf.probe_scan`` + the k-row all_gather
-    merge. This is the TPU re-design of the reference's disk-resident
-    *cluster* scan (``BitVecEngine.cpp:1024-1139``): its chunks hold whole
+    """Sharded IVF/TI cluster probe: buckets sharded over the CLUSTER axis,
+    each shard probing its local clusters with the same visit fraction,
+    per-shard ``ivf.probe_scan`` + the k-row all_gather merge. This is the
+    device-mesh re-design of the reference's disk-resident *cluster* scan (``BitVecEngine.cpp:1024-1139``): its chunks hold whole
     clusters and merge per-chunk answers — here the chunks are mesh shards.
 
     Semantics note: each query visits its nearest ``p_visit`` clusters *per
@@ -308,15 +300,14 @@ def sharded_ivf_search(
     and all-(-1) bucket_ids; they rank last in the probe and their windows
     are masked out of the rescore by the ids contract.
 
-    Second-stage exact rescore (VERDICT r4 #4): with ``rescore_rows`` /
+    Second-stage exact rescore: with ``rescore_rows`` /
     ``rescore_norms`` (the ROW-sharded bf16 decoded tier + its +inf-masked
     norms), each shard returns its stage-1 top-2k, the all_gather merge
     selects the global 2k candidates, and the final metric is computed
     distributed: each shard scores the candidates whose rows it owns and a
     ``psum`` assembles the exact scores (the reference's chunk merge also
     returns final-metric distances, BitVecEngine.cpp:1599-1611). Without
-    it, the sharded int8 probe serves stage-1 int8-metric selection —
-    measured ~1 recall pt worse at 10M (BENCH r4).
+    it, the sharded int8 probe serves stage-1 int8-metric selection.
     """
     from vaq_tpu import ivf as ivf_mod
 
@@ -343,7 +334,7 @@ def sharded_ivf_search(
         d, i = ivf_mod.probe_scan(
             qp_l, cents_l, rows_l, ids_l, sizes_l, k1,
             p_visit, p_max, qcap, dim_scales=scales_l, exact=exact,
-            gs=gs, rt=rt, transposed=transposed, interpret=interpret)
+            gs=gs, transposed=transposed)
         d, cand = _local_topk_merge(d, i, k1, db_axis)
         if not with_rescore:
             return d, cand

@@ -2,7 +2,7 @@
 
 The reference instruments every pipeline stage with steady-clock macros
 (``START_TIMING``/``END_TIMING``, utils/TimingUtils.hpp:28-33) and prints
-per-phase seconds plus prune counters (VAQ.cpp:779/842-844). The TPU build
+per-phase seconds plus prune counters (VAQ.cpp:779/842-844). This build
 provides the same as context managers, makes device work observable by
 syncing at phase ends, exposes QPS/latency percentile summaries as
 first-class outputs (SURVEY §5), and can wrap a region in a

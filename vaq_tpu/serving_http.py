@@ -1,7 +1,7 @@
 """HTTP front-end for the continuous-batching search server.
 
 The reference is a CLI-only library (demos print metrics and exit); a
-production TPU serving deployment needs a network surface. This module
+production serving deployment needs a network surface. This module
 wraps :class:`vaq_tpu.serving.SearchServer` in a threaded stdlib HTTP
 server (no external deps — the environment pins the package set):
 

@@ -1,4 +1,4 @@
-"""The VAQ index: train → encode → search → refine, TPU-first.
+"""The VAQ index: train → encode → search → refine, on an accelerator.
 
 This is the counterpart of the reference's ``VAQ`` class
 (``bitvecengine/VAQ.{hpp,cpp}``), re-architected for XLA:
@@ -35,7 +35,7 @@ import numpy as np
 from vaq_tpu import bitalloc, io, kmeans, pca
 from vaq_tpu.config import SearchMethod, VAQConfig
 from vaq_tpu.errors import ConfigError, NotReadyError, ShapeError
-from vaq_tpu.ops import scan_decoded, scan_jax, scan_pallas
+from vaq_tpu.ops import platform, scan_codes, scan_decoded, scan_jax
 from vaq_tpu.rng import sample_rows
 
 # Sentinel for padded codebook rows: large enough to never win an argmin,
@@ -141,11 +141,9 @@ class VAQIndex:
     centroids: Optional[np.ndarray] = None      # (M', Cmax, L) f32, padded
     centroid_counts: Optional[np.ndarray] = None  # (M',) = 2^bits_i
 
-    # Encoded database — TRANSPOSED device storage (M', n): the TPU u8 tile
-    # is (32 sublanes, 128 lanes), so (M', n) packs exactly 1 B/code while
-    # row-major (n, M') with M' < 128 lanes pads 4× (11.9 GB instead of
-    # 3.2 GB at 100M×32). Host-facing APIs (save/get_codes/oracles) stay
-    # row-major via codes_rowmajor().
+    # Encoded database — TRANSPOSED device storage (M', n), one byte per
+    # code for <= 8-bit configs. Host-facing APIs (save/get_codes/oracles)
+    # stay row-major via codes_rowmajor().
     codes: Optional[jnp.ndarray] = None         # (M', n) int on device
     n_rows: int = 0
 
@@ -153,9 +151,7 @@ class VAQIndex:
     # derived from codes, rebuilt lazily after load. See ops/scan_decoded.py.
     decoded: Optional[jnp.ndarray] = None       # (n, M'*L) bf16
     decoded_norms: Optional[jnp.ndarray] = None  # (n,) f32
-    # Int8 capacity tier (4x less HBM than bf16; ~100M rows/chip at d=128).
-    # Also transposed: the int8 tile packs any D multiple of 32 exactly
-    # ((n, 96) would lane-pad 1.33×, +3.2 GB at 100M).
+    # Int8 capacity tier (half the device bytes of bf16). Also transposed.
     decoded8: Optional[jnp.ndarray] = None      # (M'*L, n) int8
     decoded8_scales: Optional[jnp.ndarray] = None  # (M'*L,) f32
     decoded8_norms: Optional[jnp.ndarray] = None   # (n,) f32
@@ -421,10 +417,11 @@ class VAQIndex:
                       backend: str = "decoded"):
         """Device-resident fused search step: one dispatch, results stay on
         device. This is the serving hot path; `search` wraps it with host
-        conversion. ``exact`` switches the candidate selection from the fused
-        TPU approx-top-k to a true top_k (slow; parity tests). ``backend``:
-        "decoded" (bf16) or "decoded8" (int8 capacity tier). When the index
-        was `.shard()`-ed, the mesh-sharded scan is used automatically."""
+        conversion. ``exact`` switches the candidate selection from
+        ``approx_max_k`` to a true top_k (parity tests). ``backend``:
+        "decoded" (bf16), "decoded8" (int8 capacity tier) or "codes" (codes
+        resident). When the index was `.shard()`-ed, the mesh-sharded scan
+        is used automatically."""
         if self._mesh is not None and backend in ("decoded", "decoded8",
                                                   "codes"):
             sharded_tier = {"decoded": self._sharded_decoded,
@@ -434,8 +431,8 @@ class VAQIndex:
                 raise ConfigError(
                     f"index is sharded but tier {backend!r} was not "
                     "included in shard(tiers=...) — serving it unsharded "
-                    "would silently ignore the mesh (VERDICT r2 weak #5); "
-                    "re-shard with tiers including it")
+                    "would silently ignore the mesh; re-shard with tiers "
+                    "including it")
             return self._search_device_sharded(queries_dev, k, exact,
                                                recall_target,
                                                backend=backend)
@@ -448,12 +445,11 @@ class VAQIndex:
                 # (‖q − x̂‖²) and the decoded db is tiny at such n.
                 backend = "decoded"
             else:
-                # Codes-resident capacity tier: decode-then-dot Pallas kernel
-                # (HBM holds only the codes, M B/row; see ops/scan_pallas.py).
-                # Tombstones: the codes tier has no norms array to poison, so
-                # over-fetch k + #deleted and post-filter by id ON DEVICE —
-                # without this a SearchServer(backend="codes") serves deleted
-                # rows (VERDICT r2 #5; the reference compacts on delete,
+                # Codes-resident capacity tier: decode-then-dot window scan
+                # (device memory holds only the codes, M B/row; see
+                # ops/scan_codes.py). Tombstones: the codes tier has no norms
+                # array to poison, so over-fetch k + #deleted and post-filter
+                # by id ON DEVICE (the reference compacts on delete,
                 # BitVecEngine.cpp:1626-1636, so it has no such hole).
                 dec_table, dec_rows = self._codes_tier()
                 qp = pca.project(queries_dev, self._eigvecs_device(),
@@ -461,10 +457,9 @@ class VAQIndex:
                 n_del = (0 if self.deleted_ids is None
                          else len(self.deleted_ids))
                 k_fetch = min(k + n_del, self.n_rows)
-                d, i = scan_pallas.decode_scan_topk(
+                d, i = scan_codes.decode_scan_topk(
                     self.codes, dec_table, dec_rows, qp, k_fetch,
-                    n_valid=jnp.int32(self.n_rows), block_rows=br,
-                    interpret=jax.default_backend() == "cpu")
+                    n_valid=jnp.int32(self.n_rows), block_rows=br)
                 if n_del == 0:
                     return (d, i) if k_fetch == k else (d[:, :k], i[:, :k])
                 dead = jnp.any(
@@ -489,15 +484,14 @@ class VAQIndex:
             self.decoded_norms, k, exact=exact, recall_target=recall_target)
 
     def _require_codes_bits(self) -> None:
-        """The decode-then-dot Pallas tier packs 2^bits centroid rows per
-        subspace and stores codes as u8, so it only serves <= 8-bit
+        """The codes tier reads codes as u8, so it only serves <= 8-bit
         subspaces; explicit backend="codes" on a wider index must fail loudly
         rather than truncate codes."""
         if int(self.bits.max()) > 8:
             raise ConfigError(
-                "backend='codes' (decode-then-dot Pallas tier) supports "
-                "<= 8-bit subspaces (the decode table packs 2^bits "
-                "centroid rows; codes must fit u8). This index allocates "
+                "backend='codes' (decode-then-dot codes tier) supports "
+                "<= 8-bit subspaces (codes must fit u8). This index "
+                "allocates "
                 f"up to {int(self.bits.max())} bits — use "
                 "backend='decoded8' (128 B/row) or cap the config at "
                 "max8 (the reference's own FAST family caps at 4, "
@@ -509,11 +503,8 @@ class VAQIndex:
         The window scan keeps ONE candidate per (query, window), so recall
         needs windows ≫ k: with ≥ 64 windows per requested neighbor the
         expected window-collision loss is ≤ k/128 rows (< 1% of k). Aim for
-        that, floor at the kernel's hardware minimum — 16 rows, because the
-        codes block's last dim is 8·block_rows and Mosaic requires it
-        divisible by 128 (found on-chip in r3; the CPU interpreter never
-        enforces it) — and cap at 512 (past which the output block and
-        approx-top-k over windows dominate).
+        that, as a power of two between 16 rows (the fused kernel's dot
+        needs ≥ 16 rows per tile) and 512.
 
         Returns None when even 16-row windows cannot provide 64·k windows —
         the caller should serve from the decoded scan instead (identical ADC
@@ -528,13 +519,12 @@ class VAQIndex:
         return 1 << (min(br, 512).bit_length() - 1)
 
     def _codes_tier(self):
-        """Lazily built (packed decode table, f32 decode rows) for the
-        codes-resident Pallas tier; depends only on the centroids, so CRUD
-        on codes never invalidates it."""
+        """Lazily built (bf16 decode table, f32 decode rows) for the
+        codes-resident tier; depends only on the centroids, so CRUD on codes
+        never invalidates it."""
         if getattr(self, "_dec_table", None) is None:
-            self._dec_table, _ = scan_pallas.build_decode_table(
-                self.centroids)
-            self._dec_rows = scan_pallas.build_decode_rows(self.centroids)
+            self._dec_table, self._dec_rows = \
+                scan_codes.build_decode_tables(self.centroids)
         return self._dec_table, self._dec_rows
 
     # ------------------------------------------------------------------
@@ -545,9 +535,8 @@ class VAQIndex:
         """Learn per-subspace u8 LUT offset/scale by α-grid search
         (reference VAQ.cpp:1118-1187).
 
-        The whole search runs ON DEVICE (VERDICT r3 #9 — this was the last
-        host-bound train stage): one sort per subspace gives every α's
-        floor/ceil quantile by interpolated gather (``max(col − off, 0)``
+        The whole search runs ON DEVICE: one sort per subspace gives every
+        α's floor/ceil quantile by interpolated gather (``max(col − off, 0)``
         preserves order, so the offset LUT's quantile reads from the same
         sorted array), and the 7 α losses are accumulated with one blocked
         pass over the sampled LUTs.
@@ -596,17 +585,18 @@ class VAQIndex:
         """ADC top-k search for a query batch.
 
         Returns (sq_dists (nq, k), labels (nq, k)). The scan strategy flags
-        (SORT/HEAP/EA) all map to the same exhaustive blocked scan — on TPU it
-        is the fast path; TI maps to the IVF cluster-probe when built.
+        (SORT/HEAP/EA) all map to the same exhaustive blocked scan; TI maps
+        to the IVF cluster-probe when built.
 
-        backend: "decoded" (bf16 reconstruction matmul on the MXU — fastest
-        while the decoded DB fits HBM), "decoded8" (int8 tier), "codes"
-        (decode-then-dot Pallas kernel over the raw codes — the capacity
-        tier, M B/row resident; default for codes-resident search when
-        max_bits ≤ 8), "lut" (codes + LUT scan; routes to "codes" when
-        eligible), "fast4" (force the one-hot×LUT kernel with the
-        reference's u8-quantized winner selection, VAQ.cpp:1778-1836),
-        "lut_gather" (force the XLA gather scan), or "auto".
+        backend: "decoded" (bf16 reconstruction matmul — fastest while the
+        decoded DB fits device memory), "decoded8" (int8 tier), "codes"
+        (decode-then-dot window scan over the raw codes — the capacity
+        tier, M B/row resident; needs max_bits ≤ 8), "lut" (codes + LUT
+        scan; ``platform.choose("lut_scan")`` routes it to "codes" where
+        that is faster and eligible), "fast4" (the reference's FAST
+        semantics: winners by the u8-quantized LUT sums, VAQ.cpp:1778-1836,
+        then exact f32 distances), "lut_gather" (force the exact gather
+        scan), or "auto".
         """
         cfg = self.config
         if self.eigvecs is None:
@@ -626,11 +616,9 @@ class VAQIndex:
         use_quant = bool(cfg.methods & (SearchMethod.FAST | SearchMethod.FAST2
                                         | SearchMethod.FAST3)) and \
             self.lut_offsets is not None
-        # IVF/TI routing is explicit (VERDICT r2 weak #9: the old rule took
-        # the probe path whenever the TI flag + state were present, silently
-        # overriding the backend argument — an API trap for serving
-        # misconfiguration): backend="ivf" forces it, backend="auto" takes it
-        # when the config asks for TI; any concrete backend string wins.
+        # IVF/TI routing is explicit: backend="ivf" forces it,
+        # backend="auto" takes it when the config asks for TI; any concrete
+        # backend string wins.
         if backend == "ivf" and self.ivf is None:
             raise NotReadyError(
                 "backend='ivf' requires cluster_ti()/attach_ivf() first")
@@ -639,14 +627,13 @@ class VAQIndex:
             or (backend == "auto" and bool(cfg.methods & SearchMethod.TI)))
         if backend == "auto":
             # Quantized-LUT semantics only exist on the LUT path; otherwise
-            # the decoded matmul backend is strictly faster until HBM runs
-            # out (bf16 tier to ~10M rows of d=128/chip, int8 tier to ~100M;
-            # beyond that pass backend="lut" or shard over a mesh).
+            # the decoded matmul backend is the fast one until device memory
+            # runs out (then pass backend="decoded8"/"codes" or shard).
             backend = "lut" if use_quant else "decoded"
         if ti_path:
             # Probe path gathers/scans its own buckets. On a sharded index
             # the TI tier must itself be sharded — silently serving the
-            # unsharded buckets would ignore the mesh (VERDICT r3 weak #4).
+            # unsharded buckets would ignore the mesh.
             if self._mesh is not None and self._sharded_ivf is None:
                 raise ConfigError(
                     "index is sharded but the TI/IVF tier was not included "
@@ -661,8 +648,7 @@ class VAQIndex:
         # Tombstones: the norms-based paths (decoded/decoded8) exclude them
         # exactly via +inf norms, and the IVF probe via bucket_ids == -1;
         # only the codes+LUT path needs the over-fetch + post-filter
-        # (conditioned on the path actually taken, not the backend string —
-        # ADVICE r1).
+        # (conditioned on the path actually taken, not the backend string).
         k_out = k
         n_deleted = 0 if self.deleted_ids is None else len(self.deleted_ids)
         # A sharded codes tier is served via search_device, which applies the
@@ -694,20 +680,16 @@ class VAQIndex:
             else:
                 qp = pca.project(qb, self.eigvecs, self.total_dim)
                 max_b = int(self.bits.max())
-                # The decode-then-dot kernel is the default codes-resident
-                # path (≤8-bit codes, enough windows per k): ~4-20× the
-                # one-hot/gather scans at equal-or-better recall, since its
-                # MXU cost is d MACs/row/query instead of M·C. The explicit
-                # "fast4" backend keeps the reference's quantized-LUT winner
-                # semantics available.
+                # The decode-then-dot codes tier serves ≤8-bit codes when
+                # enough windows per k can be formed; for backend="lut" the
+                # platform decides whether it beats the exact gather scan.
                 if backend == "codes":
                     self._require_codes_bits()
                 br = self._codes_block_rows(k)
                 use_codes = br is not None and (
                     backend == "codes" or (
-                        backend == "lut"
-                        and max_b <= 8
-                        and jax.default_backend() != "cpu"))
+                        backend == "lut" and max_b <= 8
+                        and platform.choose("lut_scan") == "codes"))
                 if backend == "codes" and br is None:
                     # decoded fallback: same ADC quantity, enough windows
                     # cannot be formed at this n (see _codes_block_rows)
@@ -718,15 +700,14 @@ class VAQIndex:
                     continue
                 if use_codes:
                     dec_table, dec_rows = self._codes_tier()
-                    d, i = scan_pallas.decode_scan_topk(
+                    d, i = scan_codes.decode_scan_topk(
                         self.codes, dec_table, dec_rows, qp, k,
-                        n_valid=jnp.int32(self.n_rows), block_rows=br,
-                        interpret=jax.default_backend() == "cpu")
+                        n_valid=jnp.int32(self.n_rows), block_rows=br)
                     all_d[start:start + qb.shape[0]] = np.asarray(d)
                     all_i[start:start + qb.shape[0]] = np.asarray(i)
                     continue
                 luts = scan_jax.build_luts(qp, jnp.asarray(self.centroids))
-                lut8_kernel = None
+                scan_luts, lut8 = luts, None
                 if use_quant:
                     # Reproduce the FAST-path accuracy: quantize to u8 then
                     # dequantize, injecting the same rounding error as the
@@ -742,60 +723,21 @@ class VAQIndex:
                         # only the ≤4-bit subspaces go through the quantized
                         # table; >4-bit ones keep the f32 gather path.
                         shuf = jnp.asarray(self.bits <= 4)[None, :, None]
-                        luts = jnp.where(shuf, deq, luts)
+                        scan_luts = jnp.where(shuf, deq, luts)
                     else:
-                        luts = deq
-                        # Pallas path scans the raw u8 sums (the reference
-                        # accumulates raw table bytes too, VAQ.cpp:1800-1830)
-                        lut8_kernel = lut8
-                max_b = int(self.bits.max())
-                if backend == "fast4" and max_b > 4:
-                    raise ConfigError(
-                        "fast4 backend requires max_bits <= 4 "
-                        "(reference constraint, VAQ.cpp:1263-1266)")
-                # The Pallas one-hot scan serves any <= 8-bit config (C =
-                # 2^max_bits LUT columns); the XLA gather scan remains the
-                # fallback for >8-bit codes, CPU, small n (too few windows
-                # per k for window-candidate recall), or explicit
-                # backend="lut_gather".
-                use_fast4 = backend == "fast4" or (
-                    backend != "lut_gather"
-                    and max_b <= 8
-                    and jax.default_backend() != "cpu"
-                    and self.n_rows >= 64 * k  # enough windows for recall
-                    and (backend == "lut"
-                         or bool(cfg.methods & SearchMethod.FAST)))
-                if use_fast4:
-                    # Pallas fused one-hot x LUT kernel (the AVX2 shuffle
-                    # scan analog); windows sized for >= ~40 windows per k.
-                    br = max(256, min(512, self.n_rows // (64 * k)))
-                    br = 1 << (br.bit_length() - 1)
-                    luts16 = luts
-                    if luts16.shape[2] < 16:  # max_bits < 4: pad LUT to C=16
-                        # Pad with 0.0, NOT inf: the kernel computes
-                        # onehot @ lut where one-hot zeros multiply the pad
-                        # entries (0·inf = NaN would poison every window).
-                        # Padded entries can never be selected — codes are
-                        # always < 2^bits < C (ADVICE r1).
-                        padc = 16 - luts16.shape[2]
-                        luts16 = jnp.pad(
-                            luts16, ((0, 0), (0, 0), (0, padc)),
-                            constant_values=0.0)
-                        if lut8_kernel is not None:
-                            lut8_kernel = jnp.pad(
-                                lut8_kernel, ((0, 0), (0, 0), (0, padc)))
-                    # fast4/gather scans keep the row-major (n, M) contract;
-                    # the device transpose is an O(n·M) transient on these
-                    # niche paths (the capacity-critical decode-then-dot
-                    # kernel consumes the transposed storage natively)
-                    d, i = scan_pallas.fast4_scan_topk(
-                        self.codes.T, luts16, k,
-                        n_valid=jnp.int32(self.n_rows), block_rows=br,
-                        interpret=jax.default_backend() == "cpu",
-                        luts8=lut8_kernel)
+                        scan_luts = deq
+                if backend == "fast4":
+                    if max_b > 4:
+                        raise ConfigError(
+                            "fast4 backend requires max_bits <= 4 "
+                            "(reference constraint, VAQ.cpp:1263-1266)")
+                    d, i = scan_jax.fast_scan_topk(
+                        self.codes.T, luts, lut8, k,
+                        n_valid=jnp.int32(self.n_rows),
+                        block_rows=block_rows)
                 else:
                     d, i = scan_jax.adc_scan_topk(
-                        self.codes.T, luts, k,
+                        self.codes.T, scan_luts, k,
                         n_valid=jnp.int32(self.n_rows),
                         block_rows=block_rows)
             all_d[start:start + qb.shape[0]] = np.asarray(d)
@@ -841,8 +783,7 @@ class VAQIndex:
                 [self.decoded_norms, norms])
         self.decoded8 = None  # rebuilt lazily
         # Re-shard explicitly after bulk updates — and actually release the
-        # sharded device buffers, not just the mesh handle (VERDICT r2 #5:
-        # dropping _mesh alone left the sharded decoded DB memory-resident).
+        # sharded device buffers, not just the mesh handle.
         self._mesh = None
         self._q_axis = None
         self._sharded_decoded = None
@@ -890,12 +831,12 @@ class VAQIndex:
                 r, c = np.divmod(flat, st.bucket_ids.shape[1])
                 r_d, c_d = jnp.asarray(r), jnp.asarray(c)
                 st.bucket_ids = st.bucket_ids.at[r_d, c_d].set(-1)
-                # poison the row values too: the group-min kernel ranks by
-                # values (norms are computed in-kernel), so a deleted row
+                # poison the row values too: the group-min scan ranks by
+                # values (norms are derived from the rows), so a deleted row
                 # left in place would keep promoting its window. Exactness
                 # never depends on this — the rescore masks slots whose
                 # bucket_ids are -1 (set above).
-                from vaq_tpu.ops.probe_pallas import poison_pattern
+                from vaq_tpu.ops.probe import poison_pattern
                 if st.bucket_rows.dtype == jnp.int8:
                     poison_row = jnp.asarray(poison_pattern(st.d_full))
                 else:
@@ -950,14 +891,14 @@ class VAQIndex:
 
         ``tiers`` selects which storage tiers get a sharded path: "decoded"
         (bf16, 2·D B/row — the throughput tier), "decoded8" (int8, D B/row),
-        "codes" (raw codes, M B/row — the capacity tiers that actually
-        motivate a pod; VERDICT r2 #4) and/or "ivf" (the cluster-probe
-        buckets, sharded over whole clusters — requires attach_ivf first;
-        VERDICT r3 #6). After this, `search_device`/`search` with a matching
-        backend run the sharded scan with the per-shard top-k merged by one
-        k-row all_gather (the TPU re-design of the reference's disk-resident
-        chunk merge, BitVecEngine.cpp:1599); a backend whose tier was NOT
-        sharded raises instead of silently serving unsharded.
+        "codes" (raw codes, M B/row — the capacity tiers) and/or "ivf" (the
+        cluster-probe buckets, sharded over whole clusters — requires
+        attach_ivf first). After this, `search_device`/`search` with a
+        matching backend run the sharded scan with the per-shard top-k
+        merged by one k-row all_gather (the device-mesh form of the
+        reference's disk-resident chunk merge, BitVecEngine.cpp:1599); a
+        backend whose tier was NOT sharded raises instead of silently
+        serving unsharded.
         Pass q_axis="q" on a 2-D (q, db) mesh for query data parallelism.
         """
         from jax.sharding import NamedSharding
@@ -988,7 +929,7 @@ class VAQIndex:
             from vaq_tpu.ivf import ShardedIVF
             # the row-sharded decoded tier (just built above when present)
             # doubles as the exact second-stage rescore source for int8
-            # buckets (VERDICT r4 #4)
+            # buckets
             self._sharded_ivf = ShardedIVF(
                 self.ivf.state, self.ivf.visit, mesh, q_axis,
                 rescore_rows=self._sharded_decoded,
@@ -1035,7 +976,7 @@ class VAQIndex:
         # codes tier: per-shard window count sets the block size; tombstones
         # are post-filtered by id exactly as on the unsharded codes path
         shard_rows = self._sharded_codes.shape[1] // self._mesh.shape["db"]
-        br = max(16, min(512, shard_rows // (64 * k)))  # 16 = Mosaic minimum
+        br = max(16, min(512, shard_rows // (64 * k)))  # see _codes_block_rows
         br = 1 << (br.bit_length() - 1)
         n_del = 0 if self.deleted_ids is None else len(self.deleted_ids)
         k_fetch = min(k + n_del, self.n_rows)
@@ -1043,7 +984,7 @@ class VAQIndex:
         d, i = sharded_codes_search(
             self._sharded_codes, dec_table, dec_rows, qp, k_fetch,
             jnp.int32(self.n_rows), self._mesh, block_rows=br,
-            interpret=jax.default_backend() == "cpu", q_axis=self._q_axis)
+            q_axis=self._q_axis)
         if n_del:
             dead = jnp.any(
                 i[:, :, None] == self._deleted_device()[None, None, :],
@@ -1161,11 +1102,9 @@ class VAQIndex:
 
     @classmethod
     def load(cls, path: str, with_codes: bool = True) -> "VAQIndex":
-        """``with_codes=False`` skips the device upload of the codes —
-        for flows that serve a different tier (e.g. the 100M probe-only
-        path, where every HBM byte is needed for the bucket arrays and
-        even a freed 3.2 GB codes transient can linger in the client's
-        deferred deallocation)."""
+        """``with_codes=False`` skips the device upload of the codes — for
+        flows that serve a different tier (e.g. a probe-only deployment,
+        where device memory is needed for the bucket arrays)."""
         arrays, meta = io.load_index_npz(path)
         if not with_codes:
             arrays.pop("codes", None)
